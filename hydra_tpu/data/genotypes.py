@@ -1,4 +1,5 @@
-"""Dataset assembly: packed genotypes + phenotypes + groups, padded for TPU.
+"""Dataset assembly: packed genotypes + phenotypes + groups, padded for the
+device layout.
 
 Host-side equivalent of the reference's data-loading block
 (BayesRRm.cpp:1317-1515): read genotypes (BED or sparse files), apply the
@@ -29,37 +30,13 @@ _PAD_BYTE = 0b01010101   # 4 missing codes
 
 
 def pad_individuals(n: int) -> int:
-    """TPU-friendly padded individual count.
+    """Padded individual count: n rounded up to a multiple of IND_ALIGN.
 
-    A multiple of IND_ALIGN whose packed byte width NB = 128*q tiles
-    cleanly: the Pallas window kernels pick the largest 128-multiple tile
-    that DIVIDES NB within their ~1-2 KB VMEM-budgeted preference
-    (window_kernels._pick_tile / _auto_tile), so q needs a divisor k in
-    [4, 9] (tiles 512-1152 bytes, under every kernel's budget) or the
-    kernels degrade to 128-byte tiles. Hit at N=500,000: q = 977 is
-    PRIME, forcing 977 grid steps/window (~1.4 us fixed cost each) and a
-    TPU worker crash on the long fused dispatch (2026-08-20). Take the
-    smallest q in [q0, q0+7] whose best such divisor is >= 7 (within any
-    8 consecutive q there is a multiple of 8); if none, the smallest with
-    any; else q0. Overhead <= 0.7% at wide N; small N (q <= 36) returns
-    the plain IND_ALIGN round-up — NB is then a single tile. Pad
+    The packed width is then a multiple of 128 bytes, and the individual
+    axis splits evenly over any power-of-two --ind-shards <= 128. Pad
     individuals are missing-coded and masked everywhere, so this only
     changes shapes, never numerics."""
-    q0 = -(-n // IND_ALIGN)
-    if q0 <= 36:
-        return q0 * IND_ALIGN
-
-    def best_k(q):
-        return max((k for k in range(4, 10) if q % k == 0), default=0)
-
-    cands = [(q, best_k(q)) for q in range(q0, q0 + 8)]
-    for q, k in cands:
-        if k >= 7:
-            return q * IND_ALIGN
-    for q, k in cands:
-        if k:
-            return q * IND_ALIGN
-    return q0 * IND_ALIGN
+    return -(-n // IND_ALIGN) * IND_ALIGN
 
 
 def _pad_packed_columns(packed: np.ndarray, n: int, n_pad: int) -> np.ndarray:

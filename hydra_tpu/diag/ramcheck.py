@@ -1,9 +1,12 @@
-"""HBM/RAM usage estimator — TPU analogue of --check-RAM (C24).
+"""Device/host memory estimator — the analogue of --check-RAM (C24).
 
 The reference simulates per-node malloc of the sparse structures across a
 SLURM layout (checkRamUsage, BayesRRm.cpp:2947-3084). Here the model is the
-packed-BED layout: per-chip HBM = genotype shard + replicated residual
-buffers + per-marker state + window workspace.
+packed-BED layout: per-device memory = genotype shard + replicated residual
+buffers + per-marker state + window workspace. The estimate is compared
+with the memory JAX may use on the device this run sees
+(`memory_stats()["bytes_limit"]`); no size is assumed for a device that
+reports none.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from hydra_tpu.options import Options
 
 def estimate_bytes(m_tot: int, n: int, n_chips: int, window: int,
                    k: int = 4, num_groups: int = 1, n_ind: int = 1) -> dict:
-    """Per-chip HBM for an (n_chips/n_ind markers) x (n_ind inds) mesh.
+    """Per-device bytes for an (n_chips/n_ind markers) x (n_ind inds) mesh.
 
     n_ind > 1 (--ind-shards) divides every N-length buffer — residual,
     workspace planes, genotype byte columns — by the inds axis size."""
@@ -26,7 +29,8 @@ def estimate_bytes(m_tot: int, n: int, n_chips: int, window: int,
     geno = m_loc * (n_loc // 4)                    # packed 2-bit genotypes
     eps = 2 * n_loc * 4                            # eps + delta buffer
     marker_state = m_loc * (4 + 4 + 4 + 4 + 4 + 4)  # beta/comp/acum/mave/mstd/valid
-    window_ws = window * n_loc * 4 * 2             # decoded planes (transient)
+    window_ws = window * n_loc * 4 * 2             # decoded planes (upper bound
+                                                   # of the transient workspace)
     gram = window * window * 4
     total = geno + eps + marker_state + window_ws + gram
     return dict(geno=geno, eps=eps, marker_state=marker_state,
@@ -97,6 +101,15 @@ def check_ram_sparse(opt: Options) -> dict:
                 nranks=nranks)
 
 
+def device_bytes_limit():
+    """Bytes JAX may allocate on the first visible device, or None when the
+    device reports no limit (the CPU)."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats()
+    return (stats or {}).get("bytes_limit")
+
+
 def check_ram_usage(opt: Options) -> dict:
     if opt.read_from_sparse_files:
         return check_ram_sparse(opt)
@@ -107,23 +120,31 @@ def check_ram_usage(opt: Options) -> dict:
     est = estimate_bytes(m, n, chips, max(opt.window, 1),
                          n_ind=max(getattr(opt, "ind_shards", 1), 1))
     gb = est["total"] / 1e9
-    print(f"INFO   : M={m} N={n} over {chips} chip(s), window={opt.window}, "
+    print(f"INFO   : M={m} N={n} over {chips} device(s), window={opt.window}, "
           f"ind-shards={getattr(opt, 'ind_shards', 1)}")
-    print(f"INFO   : per-chip HBM estimate: {gb:.3f} GB "
+    print(f"INFO   : per-device memory estimate: {gb:.3f} GB "
           f"(geno {est['geno'] / 1e9:.3f}, workspace {est['window_ws'] / 1e9:.3f})")
-    # --check-RAM-tasks-per-node: chips per host (the reference's per-node
+    # --check-RAM-tasks-per-node: devices per host (the reference's per-node
     # grouping, BayesRRm.cpp:2947-3084). Host RAM must stage every local
-    # chip's genotype shard during load, so report the per-host aggregate.
+    # device's genotype shard during load, so report the per-host aggregate.
     tpn = max(0, opt.check_ram_tpn)
     if tpn:
         hosts = -(-chips // tpn)
         host_gb = est["total"] * min(tpn, chips) / 1e9
         est["hosts"] = hosts
         est["per_host"] = est["total"] * min(tpn, chips)
-        print(f"INFO   : {tpn} chip(s)/host -> {hosts} host(s); per-host "
-              f"aggregate (HBM + host staging at load): {host_gb:.3f} GB")
-    hbm_per_chip = 16e9  # v5e class
-    if est["total"] > hbm_per_chip:
-        print(f"WARNING: exceeds ~{hbm_per_chip / 1e9:.0f} GB HBM per chip; "
-              f"need >= {-(-est['total'] // int(hbm_per_chip))} chips or smaller window")
+        print(f"INFO   : {tpn} device(s)/host -> {hosts} host(s); per-host "
+              f"aggregate (host staging at load): {host_gb:.3f} GB")
+    limit = device_bytes_limit()
+    est["bytes_limit"] = limit
+    if limit is None:
+        print("INFO   : this device reports no memory limit (CPU run); "
+              "no device-memory check made")
+    elif est["total"] > limit:
+        print(f"WARNING: exceeds the {limit / 1e9:.1f} GB JAX may use on "
+              f"this device; need >= {-(-est['total'] // int(limit))} "
+              "devices or a smaller window")
+    else:
+        print(f"INFO   : fits the {limit / 1e9:.1f} GB JAX may use on this "
+              "device")
     return est

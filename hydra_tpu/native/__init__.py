@@ -60,8 +60,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.bed_dot.argtypes = [u8p, i64, i64, i64, f64p, f64p, f64p, f64p]
         lib.bed_pack.argtypes = [u8p, i64, i64, u8p, i64]
         lib.bed_generate.argtypes = [u8p, i64, i64, u8p, u8p, u8p, i64]
-        i8p = np.ctypeslib.ndpointer(np.int8, flags="C")
-        lib.bed_expand_planes.argtypes = [u8p, i64, i64, i8p]
         lib.bed_hpack.argtypes = [u8p, i64, u8p]
         _lib = lib
         return _lib
@@ -106,18 +104,6 @@ def bed_decode(packed: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     mask = np.empty((m, nbytes * 4), np.float32)
     lib.bed_decode(np.ascontiguousarray(packed), m, nbytes, geno, mask)
     return geno, mask
-
-
-def bed_expand_planes(packed: np.ndarray) -> Optional[np.ndarray]:
-    """Flat-deinterleaved int8 planes (ops/planes.py layout); None if the
-    native library is unavailable (caller falls back to the NumPy LUT)."""
-    lib = _load()
-    if lib is None:
-        return None
-    m, nbytes = packed.shape
-    out = np.empty((m, nbytes * 4), np.int8)
-    lib.bed_expand_planes(np.ascontiguousarray(packed), m, nbytes, out)
-    return out
 
 
 def bed_remove_individuals(packed: np.ndarray, n: int,

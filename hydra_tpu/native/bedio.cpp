@@ -168,27 +168,6 @@ void bed_decode(const uint8_t* packed, int64_t m, int64_t nbytes,
     }
 }
 
-// Flat-deinterleaved int8 genotype planes (the HBM plane cache of
-// hydra_tpu/ops/planes.py): out[i, k*nbytes + b] = geno(code k of byte b),
-// missing/pad -> 0. Column order matches the device kernels' plane-major
-// residual layout; see ops/planes.py module docstring.
-void bed_expand_planes(const uint8_t* packed, int64_t m, int64_t nbytes,
-                       int8_t* out) {
-    static const int8_t gv[4] = {2, 0, 1, 0};
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < m; ++i) {
-        const uint8_t* row = packed + i * nbytes;
-        int8_t* o = out + i * nbytes * 4;
-        for (int64_t b = 0; b < nbytes; ++b) {
-            const uint8_t v = row[b];
-            o[b] = gv[v & 3];
-            o[nbytes + b] = gv[(v >> 2) & 3];
-            o[2 * nbytes + b] = gv[(v >> 4) & 3];
-            o[3 * nbytes + b] = gv[(v >> 6) & 3];
-        }
-    }
-}
-
 // Remove individuals (keep[i] == 0 -> drop) and repack; pad tail with
 // missing codes. Equivalent outcome to
 // sparse_data_correct_for_missing_phenotype (data.cpp:1112-1158).

@@ -1,14 +1,14 @@
-"""On-device decode of packed 2-bit PLINK genotypes + window primitives.
+"""Decode of packed 2-bit PLINK genotypes, and the h-packed device format.
 
-TPU-native replacement for the reference's two genotype kernel paths:
+Device replacement for the reference's two genotype kernel paths:
   * the AVX2 LUT dot product over raw BED bytes (BayesRRm.cpp:1774-1808,
     dotp_lut_a/b in src/dotp_lut.h), and
   * the sparse index-list kernels sparse_dotprod / sparse_scaadd
     (BayesRRm.cpp:250-342).
 
-Representation: genotypes stay packed in HBM as (M, ceil(N/4)) uint8 —
-4 individuals per byte, LSB-first. Decode happens on the VPU right before the
-MXU matmuls; the decoded planes are
+Representation: genotypes stay packed in device memory as (M, ceil(N/4))
+uint8 — 4 individuals per byte, LSB-first. The samplers decode inside the
+window reductions (ops/window.py); the decoded planes are
 
     A (geno)  : code 00 -> 2, 10 -> 1, 11 -> 0, 01 (missing) -> 0
     B (mask)  : 0 where missing else 1
@@ -20,8 +20,8 @@ The hot-loop identity (see BayesRRm.cpp:1809 and sparse_dotprod:316-342):
     num_j  = mstd_j * (A_j . eps - mave_j * (B_j . eps)) = x~_j . eps
     where x~_j = mstd_j * (A_j - mave_j * B_j)   (standardized, missing -> 0)
 
-so a window of W markers needs two (W,N)x(N,) products — one MXU call on the
-stacked planes — instead of W sequential sparse dot products.
+so a window of W markers needs two (W,N)x(N,) products instead of W
+sequential sparse dot products.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import numpy as np
 
 # ---------------------------------------------------------------------------
 # h-packed DEVICE format ("hpack"): a load-time repack of the PLINK crumbs
-# chosen so the in-kernel decode is minimal. Each 2-bit crumb stores
+# chosen so the on-device decode is minimal. Each 2-bit crumb stores
 # h = 2 - genotype directly, with 3 = missing:
 #
 #     PLINK 00 (geno 2) -> 0      PLINK 10 (geno 1) -> 1
@@ -45,8 +45,8 @@ import numpy as np
 # (3 ops vs 5 for the arithmetic h-decode of PLINK codes), and the mask
 # falls out of one extra compare. The repack is a byte-level 256-entry
 # LUT applied once on the host before device_put — GenotypeData.packed
-# and every file format stay PLINK-coded; only sampler device arrays and
-# the Pallas kernels speak hpack.
+# and every file format stay PLINK-coded; only sampler device arrays (and
+# ops/window.py, which decodes them) speak hpack.
 # ---------------------------------------------------------------------------
 
 _HP_CRUMB = np.array([0, 3, 1, 2], dtype=np.uint8)     # PLINK code -> hpack
@@ -88,26 +88,10 @@ def unhpack_bytes(packed: np.ndarray) -> np.ndarray:
     return UNHPACK_LUT[packed]
 
 
-def decode_planes_hp(packed: jax.Array, dtype=jnp.float32
-                     ) -> Tuple[jax.Array, jax.Array]:
-    """decode_planes for H-PACKED bytes: code c stores h = 2 - geno
-    (missing = 3), so geno = (2 - c) * mask, mask = (c != 3)."""
-    b = packed
-    c0 = b & 3
-    c1 = (b >> 2) & 3
-    c2 = (b >> 4) & 3
-    c3 = (b >> 6) & 3
-    codes = jnp.stack([c0, c1, c2, c3], axis=-1).reshape(*b.shape[:-1], -1)
-    codes = codes.astype(jnp.int32)
-    mask_i = 1 - ((codes + 1) >> 2)                 # 0 iff c == 3
-    geno = ((2 - codes) * mask_i).astype(dtype)
-    return geno, mask_i.astype(dtype)
-
-
 def decode_planes(packed: jax.Array, dtype=jnp.float32) -> Tuple[jax.Array, jax.Array]:
     """Decode packed bytes (..., NB) uint8 -> (geno A, mask B), (..., NB*4).
 
-    Arithmetic decode (no gather): cheaper than a table lookup on the VPU.
+    Arithmetic decode (no gather): cheaper than a table lookup on device.
     code = 0 -> (2,1); 1 -> (0,0); 2 -> (1,1); 3 -> (0,1).
     """
     b = packed
@@ -142,7 +126,7 @@ def window_dot(packed: jax.Array, eps: jax.Array, dtype=jnp.float32
     s2 = sum mask*eps (BayesRRm.cpp:1774-1808).
     """
     A, B = decode_planes(packed, dtype)
-    # HIGHEST: XLA's default matmul precision on TPU is bf16-rounded
+    # HIGHEST: an f32 product may otherwise run in TF32 on the GPU
     hi = jax.lax.Precision.HIGHEST
     s1 = jnp.dot(A, eps, preferred_element_type=dtype, precision=hi)
     s2 = jnp.dot(B, eps, preferred_element_type=dtype, precision=hi)

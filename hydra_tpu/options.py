@@ -3,8 +3,8 @@
 Mirrors the reference's CLI surface (src/options.hpp:20-138, src/options.cpp:5-397)
 as a dataclass + argparse front-end, including the `--inp-file` key-value option
 file (options.cpp:335-397). Flag names are kept identical where they exist in the
-reference so scripts can be moved over unchanged; TPU-specific knobs are added
-under the same style.
+reference so scripts can be moved over unchanged; knobs of this rebuild (windows,
+mesh shape, device) are added under the same style.
 """
 
 from __future__ import annotations
@@ -61,8 +61,8 @@ class Options:
     S: List[float] = field(default_factory=lambda: [0.01, 0.001, 0.0001])  # --S
     shuffle_markers: int = 1             # --shuf-mark
     sync_rate: int = 1                   # --sync-rate (options.cpp:213-216)
-    sparse_sync: bool = False            # --sparse-sync (accepted; dense psum used on TPU)
-    bed_sync: bool = False               # --bed-sync   (accepted; dense psum used on TPU)
+    sparse_sync: bool = False            # --sparse-sync (accepted; dense psum used)
+    bed_sync: bool = False               # --bed-sync   (accepted; dense psum used)
 
     # --- outputs (options.hpp:73-75) ---
     mcmc_out_dir: str = ""               # --mcmc-out-dir
@@ -89,21 +89,20 @@ class Options:
     # epsilon layout in the reference (BayesRRm_mt.cpp:449-520); an XLA
     # layout detail here — accepted no-op, numerics identical
 
-    # --- TPU-specific (no reference equivalent) ---
+    # --- this rebuild only (no reference equivalent) ---
     window: int = 0                      # marker-window batch size; 0 → = sync_rate
     exact: bool = True                   # Gram-corrected exact sequential semantics
     n_devices: int = 0                   # 0 → all visible devices
     ind_shards: int = 1                  # individual-axis mesh shards (N-sharding)
-    dcn_slices: int = 1                  # multi-slice hierarchy: ("dcn","markers")
+    dcn_slices: int = 1                  # multi-host hierarchy: ("dcn","markers")
     dtype: str = "float32"               # accumulation dtype
-    plane_cache: str = "off"             # int8 decoded-plane cache (ops/planes.py)
-    mega: str = "auto"                   # whole-sweep mega-kernel gate override
     schedule: str = "auto"               # marker-processing schedule
                                          # (auto|marker|block; see BayesRRmConfig)
     cross_sync: int = 0                  # exact-mode cross-shard exchange
     det_sync: int = 0                    # topology-invariant reductions
                                          # interval B (markers); 0 -> window
-    device: str = ""                     # JAX platform override (cpu|tpu|...)
+    device: str = ""                     # cpu | gpu; "" = GPU unless
+                                         # JAX_PLATFORMS=cpu (platform.py)
 
     @property
     def mcmc_out(self) -> str:
@@ -142,10 +141,9 @@ class Options:
                 # Exact mode is PROVEN window-invariant (the Gram correction
                 # reproduces sequential Gibbs for any W —
                 # tests/test_bayesrrm.py::test_exact_mode_is_exact_across_shards
-                # asserts W=1 == W=4 chains), so the default window is sized
-                # for the hardware, not tied to --sync-rate: W=64 takes the
-                # fused Pallas window kernels (gated at W >= 8) instead of a
-                # per-marker XLA scan, at identical semantics.
+                # asserts W=1 == W=4 chains), so the default window is a
+                # speed choice, not tied to --sync-rate: a wide window batches
+                # the N-length work, at identical semantics.
                 self.window = 64
                 self.window_auto = True
                 if self.sync_rate != self.window:
@@ -163,8 +161,7 @@ class Options:
             print(f"WARNING: --window {self.window} > 64 for bayesWMPI: "
                   "stale windows this wide measurably bias the alpha/m0 "
                   "posterior (BIAS_SWEEP_BW.md); keep BayesW windows <= 64 "
-                  "(--window 1 runs EXACT sequential BayesW via the W=1 "
-                  "whole-sweep kernel)", flush=True)
+                  "(--window 1 runs EXACT sequential BayesW)", flush=True)
         if self.mcmc_out_dir:
             os.makedirs(self.mcmc_out_dir, exist_ok=True)
             os.makedirs(os.path.join(self.mcmc_out_dir, "tarballs"), exist_ok=True)
@@ -196,7 +193,7 @@ def _read_option_file(path: str) -> List[str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="hydra-tpu",
-        description="TPU-native Bayesian whole-genome regression (hydra rebuild)",
+        description="Bayesian whole-genome regression on the GPU (hydra rebuild)",
         allow_abbrev=False,
     )
     a = p.add_argument
@@ -253,7 +250,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("--v0L", dest="v0L", type=float, default=3.0)
     a("--v0t", dest="v0t", type=float, default=3.0)
     a("--interleave-phenotypes", action="store_true", dest="interleave")
-    # TPU-specific
+    # this rebuild only
     a("--window", dest="window", type=int, default=0)
     a("--stale", action="store_true", dest="stale",
       help="use stale-window semantics instead of exact Gram-corrected Gibbs")
@@ -262,33 +259,21 @@ def build_parser() -> argparse.ArgumentParser:
       help="shard the individual dimension over this many devices "
            "(2-D markers x inds mesh)")
     a("--dcn-slices", dest="dcn_slices", type=int, default=1,
-      help="multi-slice pods: declare this many DCN-connected slices; "
-           "markers shard over a hierarchical (dcn, markers) mesh and the "
-           "residual all-reduce runs ICI-first then chunked over DCN")
+      help="multi-host runs: declare this many hosts; markers shard over a "
+           "hierarchical (dcn, markers) mesh and the residual all-reduce "
+           "runs within each host over NVLink first, then chunked across "
+           "hosts")
     a("--dtype", dest="dtype", default="float32",
       choices=["float32", "float64"],
       help="sampler accumulation dtype; float64 needs JAX_ENABLE_X64 "
            "(the reference is f64 end-to-end)")
-    a("--cache-planes", dest="plane_cache", default="off",
-      choices=["off", "on", "auto"],
-      help="EXPERIMENTAL: cache int8 decoded genotype planes in HBM "
-           "(stale complete-data runs). Hardware-measured 15x slower than "
-           "the default decode-on-the-fly kernels (ops/planes.py); 'on' "
-           "forces it, 'auto' is an accepted alias of 'off'")
-    a("--mega", dest="mega", default="auto",
-      choices=["auto", "on", "off"],
-      help="whole-sweep mega-kernel (single-shard stale runs): auto gates "
-           "on the VMEM-resident residual size; on forces it beyond the "
-           "N auto-gate, off disables")
     a("--schedule", dest="schedule", default="auto",
       choices=["auto", "marker", "block"],
-      help="marker-processing schedule for stale windows: 'marker' = the "
-           "reference's fresh per-sweep marker permutation; 'block' = a "
-           "one-time decorrelating marker->slot permutation plus per-sweep "
-           "window-BLOCK shuffle, letting the whole-sweep mega kernel DMA "
-           "windows in place (no second packed HBM copy — required for "
-           "mega at very large M). auto = marker unless the marker-mega "
-           "is HBM-gated off. Exact mode always uses marker")
+      help="marker-processing schedule: 'marker' = the reference's fresh "
+           "per-sweep marker permutation; 'block' = a one-time "
+           "decorrelating marker->slot permutation plus a per-sweep "
+           "window-BLOCK shuffle (exact chains then depend on the window "
+           "width). auto = marker, on every backend")
     a("--det-sync", dest="det_sync", type=int, default=0,
       help="1 = topology-invariant residual reductions (all_gather + "
            "fixed-order sum): the SAME mesh gives bitwise-identical chains "
@@ -304,10 +289,10 @@ def build_parser() -> argparse.ArgumentParser:
            "on-rank too). 1 = strict syncRate-1 parity (one scalar/shard "
            "collective per marker step; latency-bound at scale)")
     a("--device", dest="device", default="",
-      choices=["", "cpu", "tpu"],
-      help="JAX platform override, applied before any backend init "
-           "(the reference runs anywhere MPI does; this makes the CLI "
-           "runnable without TPU access, e.g. --device cpu)")
+      choices=["cpu", "gpu"],
+      help="where to run: gpu (the default) or cpu. Without this flag the "
+           "run needs a GPU and stops with an error when none is found, "
+           "unless JAX_PLATFORMS=cpu")
     # Reference-compat flags. --raw-update selects a numerically identical
     # epsilon update formula in the reference's 1-rank path (BayesW.cpp:1812)
     # -> accepted no-op. The PPBayes/preprocess flags select the non-MPI
@@ -388,8 +373,6 @@ def parse_args(argv: Optional[List[str]] = None) -> Options:
     opt.ind_shards = ns.ind_shards
     opt.dcn_slices = ns.dcn_slices
     opt.dtype = ns.dtype
-    opt.plane_cache = ns.plane_cache
-    opt.mega = ns.mega
     opt.schedule = ns.schedule
     opt.cross_sync = ns.cross_sync
     opt.det_sync = ns.det_sync

@@ -1,11 +1,12 @@
-"""Multi-host initialization — the TPU-pod analogue of hydra's SLURM/MPI setup.
+"""Multi-process initialization — the analogue of hydra's SLURM/MPI setup.
 
-The reference launches via `srun`/mvapich (CSCS/*.sh); here each host of a
-TPU pod slice runs the same CLI and `init_distributed()` wires them into one
-`jax.distributed` job. After initialization `jax.devices()` spans all hosts,
-so the marker mesh and psum residual sync work unchanged — ICI within a
-slice, DCN across slices (raise --window to amortize DCN latency, the direct
-analogue of raising --sync-rate across nodes).
+The reference launches via `srun`/mvapich (CSCS/*.sh); here every process
+(one per GPU, on one or several hosts) runs the same CLI and
+`init_distributed()` wires them into one `jax.distributed` job. After
+initialization `jax.devices()` spans all processes, so the marker mesh and
+psum residual sync work unchanged — NVLink within a host, the network across
+hosts (raise --window to amortize cross-host latency, the direct analogue of
+raising --sync-rate across nodes).
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed from args or environment.
 
-    On Cloud TPU pods, `jax.distributed.initialize()` with no arguments
-    autodetects everything; explicit settings come from
-    HYDRA_COORDINATOR / HYDRA_NUM_PROCS / HYDRA_PROC_ID (or SLURM variables).
-    Returns True if distributed mode was initialized.
+    Settings come from HYDRA_COORDINATOR / HYDRA_NUM_PROCS / HYDRA_PROC_ID
+    (or SLURM variables); K processes on one host each see their own card
+    through CUDA_VISIBLE_DEVICES (scripts/run_multiprocess.py). Returns True
+    if distributed mode was initialized.
     """
     import jax
 
@@ -35,15 +36,9 @@ def init_distributed(coordinator: Optional[str] = None,
             "HYDRA_PROC_ID", os.environ.get("SLURM_PROCID", "0")) or 0)
 
     if coordinator:
-        jax.distributed.initialize(coordinator_address=coordinator,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-        return True
-    # explicit opt-in only: single-worker environments may still export
-    # TPU_WORKER_HOSTNAMES=localhost, which must not trigger a coordinator
-    if os.environ.get("HYDRA_DISTRIBUTED") == "1" or \
-            os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"):
-        jax.distributed.initialize()
+        jax.distributed.initialize(
+            coordinator_address=coordinator, num_processes=num_processes,
+            process_id=process_id)
         return True
     return False
 
@@ -60,8 +55,8 @@ def put_global(tree, shardings):
     every process passes the same HOST value for replicated leaves, and for
     marker-sharded leaves only the rows of this process's shards need to be
     real data (jax.make_array_from_callback materializes addressable shards
-    only — the TPU-pod equivalent of each MPI rank holding just its marker
-    block, mpi_utils.hpp:8-67)."""
+    only — the equivalent of each MPI rank holding just its marker block,
+    mpi_utils.hpp:8-67)."""
     import jax
     import numpy as np
 

@@ -3,7 +3,7 @@
 Independent sequential transcription of the conditional updates described at
 BayesRRm.cpp:1644-2690 (same math as hydra_tpu.samplers.bayesrrm, but written
 in the naive per-marker order with NumPy RNG). Used by tests to validate the
-TPU sampler's window/Gram batching against plain sequential Gibbs.
+JAX sampler's window/Gram batching against plain sequential Gibbs.
 """
 
 from __future__ import annotations

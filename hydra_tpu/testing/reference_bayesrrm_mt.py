@@ -5,7 +5,7 @@ Independent sequential transcription of the multi-trait conditional updates
 NaN masks instead of individual removal :281-289, per-(trait,marker) masked
 statistics :604-665). Written in the naive one-marker-at-a-time order with
 NumPy RNG — no JAX, no windows, no sharing of dot products across traits —
-so tests can pin the TPU sampler's batched (W,N)x(N,T) window updates
+so tests can pin the JAX sampler's batched (W,N)x(N,T) window updates
 against plain sequential Gibbs.
 
 The covariate block is the completed per-trait generalization of the

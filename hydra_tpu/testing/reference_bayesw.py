@@ -14,7 +14,7 @@ m0/2, beta_sigma + m0*betasq/2) (:1893) and pi_L ~ Dirichlet(cass+1)
 The reference draws the scalar conditionals with Gilks' ARS
 (BayesW_arms.cpp); here every scalar conditional is drawn by dense-grid
 inverse-CDF sampling — numerically exact for log-concave densities and
-completely independent of both ARS and the TPU sampler's slice sampler, so
+completely independent of both ARS and the JAX sampler's slice sampler, so
 posterior agreement between this model and hydra_tpu.samplers.bayesw
 validates the slice-sampling replacement end to end.
 

@@ -61,11 +61,9 @@ def slice_sample(
     width: initial bracket width (scalar or (B,)).
     mask: optional (B,) bool; False lanes return x0 untouched (their logf
           values may be garbage — they never influence accepted lanes).
-    unroll: statically unroll the expand/shrink loops. Measured only ~7%
-          of the BayesW sweep on v5e (the loops are not the glue that
-          dominates small windows — see ops/sweep_kernel_bw.py), and the
-          different fusion boundaries break bitwise equality between
-          step() and run_steps() dispatches, so it is off by default.
+    unroll: statically unroll the expand/shrink loops. The different
+          fusion boundaries break bitwise equality between step() and
+          run_steps() dispatches, so it is off by default.
     """
     le, ub, uu = slice_noise(key, jnp.shape(x0), n_shrink)
     return slice_sample_noise(logf, x0, le, ub, uu, width, lower, upper,

@@ -105,7 +105,7 @@ def main():
                      "exchange interval B\n(--cross-sync; B=W is the round-4 "
                      "default: one exchange per window via the\nresidual "
                      "psum, zero in-window collectives). ms/sweep is virtual "
-                     "CPU-mesh\ntime — comparative only, not TPU "
+                     "CPU-mesh\ntime — comparative only, not device "
                      "performance.\n\n")
             fh.write("| config | h2 mean | h2 5-95% | m0 | ms/sweep |\n")
             fh.write("|---|---|---|---|---|\n")

@@ -1,4 +1,4 @@
-"""Ground the --check-RAM HBM estimator against a live run (VERDICT r4 #8).
+"""Ground the --check-RAM memory estimator against a live run.
 
 Builds the real BayesRRm sampler at the requested scale, then compares
 diag/ramcheck.estimate_bytes against two measured quantities:
@@ -37,9 +37,8 @@ def main():
     ap.add_argument("--stale", action="store_true")
     args = ap.parse_args()
 
-    if args.device:
-        import jax
-        jax.config.update("jax_platforms", args.device)
+    from hydra_tpu.platform import configure
+    configure(args.device)
     import jax
 
     from hydra_tpu.data.genotypes import Dataset, GenotypeData, make_default_groups

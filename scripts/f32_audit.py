@@ -1,7 +1,7 @@
 """f32 accuracy audit at reference scale N≈500K (VERDICT r1 item 10).
 
-The reference is f64 end-to-end (BayesRRm.cpp passim); the TPU rebuild
-accumulates in f32 by default (f64 on TPU is emulated and ~10x slower).
+The reference is f64 end-to-end (BayesRRm.cpp passim); this rebuild
+accumulates in f32 by default (--dtype float64 runs the f64 chain).
 This audit measures what that costs at the reference's UK-Biobank scale
 (N=458K -> we use 500K):
 
@@ -131,7 +131,7 @@ def main():
             fh.write(f"# f32 accuracy audit (op level at N={args.n:,}, "
                      f"chains at N={args.chain_n:,}, M={args.m})\n\n"
                      "Reference is f64 end-to-end; hydra_tpu accumulates in "
-                     "f32 on TPU.\n\n## Op-level relative error (f32 vs f64, "
+                     "f32 by default.\n\n## Op-level relative error (f32 vs f64, "
                      "fixed state)\n\n| reduction | rel err |\n|---|---|\n")
             for k, v in ops.items():
                 fh.write(f"| {k} | {v:.2e} |\n")

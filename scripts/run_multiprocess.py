@@ -1,4 +1,4 @@
-"""Launch hydra_tpu as a true multi-process jax.distributed job on one host.
+"""Launch the CLI as a multi-process jax.distributed job on one host.
 
 The process-level analogue of the reference's `srun`/mvapich launch
 (main.cpp:20 MPI_Init; CSCS/*.sh): K separate Python processes each run the
@@ -8,13 +8,18 @@ own marker shards from the .bed (runner.dataset_from_options per-host read),
 and only process 0 writes output files (outputs.writers.NullWriter on the
 rest).
 
-CPU validation (no pod needed):
+CPU (virtual devices):
     python scripts/run_multiprocess.py --nprocs 2 --devices-per-proc 4 -- \
         --mpibayes bayesMPI --bfile demo --pheno demo.phen ...
 
-On a real TPU pod each host runs the CLI directly (init_distributed()
-autodetects); this script exists to exercise the identical code path with
-multiple local processes.
+GPUs, one process per card (process p sees only cards p*D .. p*D+D-1
+through CUDA_VISIBLE_DEVICES, so no process reserves memory on another's
+card):
+    python scripts/run_multiprocess.py --device gpu --nprocs 4 \
+        --devices-per-proc 1 -- --mpibayes bayesMPI ...
+
+Across hosts, each host runs the CLI itself with HYDRA_COORDINATOR /
+HYDRA_NUM_PROCS / HYDRA_PROC_ID set (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ def launch(nprocs: int, devices_per_proc: int, cli_args, *,
     """Spawn the K CLI processes; returns the Popen list."""
     repo = repo or os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = port or free_port()
+    # numbering within the cards this launcher itself may see
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible
+             else [str(i) for i in range(nprocs * devices_per_proc)])
     procs = []
     for pid in range(nprocs):
         env = dict(
@@ -51,7 +60,16 @@ def launch(nprocs: int, devices_per_proc: int, cli_args, *,
             HYDRA_NUM_PROCS=str(nprocs),
             HYDRA_PROC_ID=str(pid),
         )
-        if device == "cpu":
+        if device == "gpu":
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                cards[pid * devices_per_proc:(pid + 1) * devices_per_proc])
+            # by default the processes of one job split XLA's autotuning
+            # among themselves and exchange the results; on the 4 x H100
+            # host that compile crashed (SIGSEGV in backend_compile) in some
+            # of the processes, so each process autotunes its own program
+            env["XLA_FLAGS"] = ("--xla_gpu_shard_autotuning=false "
+                                + env.get("XLA_FLAGS", "")).strip()
+        else:
             # strip any inherited device-count flag (e.g. from the test
             # harness env) — XLA takes the LAST occurrence, which would
             # silently change the worker's device count and thus the mesh
@@ -102,7 +120,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--devices-per-proc", type=int, default=4)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--timeout", type=float, default=1800)
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("cli_args", nargs=argparse.REMAINDER,

@@ -1,6 +1,6 @@
 """Production-cadence soak with a mid-flight kill (VERDICT r3 item 8).
 
-A real production chain at M=100K x N=50K on the TPU with the production
+A real production chain at M=100K x N=50K on the GPU with the production
 thin/save cadence, SIGKILLed at ~60% of the chain, restarted with
 --restart, and checked BITWISE against an uninterrupted same-seed run:
 
@@ -144,7 +144,7 @@ def main():
                     help="CLI platform override (smoke tests on cpu)")
     ap.add_argument("--bench-ms", type=float, default=0.0,
                     help="sweep-only ms/sweep anchor for the overhead line "
-                         "(e.g. the exact-mega bench row at this shape)")
+                         "(e.g. the exact bench row at this shape)")
     ap.add_argument("--model", choices=("brr", "bw", "mt"), default="brr",
                     help="sampler family to soak (VERDICT r4 item 7: BayesW "
                          "and mt get the same SIGKILL/restart rehearsal)")

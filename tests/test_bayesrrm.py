@@ -328,7 +328,7 @@ def test_fh_smoke():
 
 @pytest.mark.slow
 def test_matches_numpy_golden_model():
-    """TPU sampler vs independent sequential NumPy Gibbs: same posterior."""
+    """JAX sampler vs independent sequential NumPy Gibbs: same posterior."""
     from hydra_tpu.io.plink import decode_bed_numpy
     from hydra_tpu.io.pheno import center_and_scale
     from hydra_tpu.testing.reference_bayesrrm import sweep
@@ -359,9 +359,9 @@ def test_matches_numpy_golden_model():
     beta_np = bsum / cnt
 
     sampler = BayesRRm(ds, window=16, seed=55, mesh=make_mesh(4))
-    h2_tpu, beta_tpu, _ = _run_chain(sampler, 200, burn=100)
-    assert abs(h2_tpu - h2_np) < 0.1, (h2_tpu, h2_np)
-    assert np.corrcoef(beta_np, beta_tpu)[0, 1] > 0.9
+    h2_jax, beta_jax, _ = _run_chain(sampler, 200, burn=100)
+    assert abs(h2_jax - h2_np) < 0.1, (h2_jax, h2_np)
+    assert np.corrcoef(beta_np, beta_jax)[0, 1] > 0.9
 
 
 def test_one_step_runs_and_shapes():
@@ -405,7 +405,7 @@ def test_f64_mode_parity():
 
 @pytest.mark.slow
 def test_fh_matches_numpy_golden_model():
-    """TPU BayesFH vs the independent NumPy golden model
+    """JAX BayesFH vs the independent NumPy golden model
     (testing/reference_bayesfh.py): same posterior on beta/sigmaE/tau scale
     (VERDICT r2 missing #1)."""
     from hydra_tpu.io.plink import decode_bed_numpy
@@ -449,10 +449,114 @@ def test_fh_matches_numpy_golden_model():
             bsum = bsum + sampler.beta_global(state)
             se_l.append(float(state.sigma_e))
             cnt += 1
-    b_tpu, se_tpu = bsum / cnt, np.mean(se_l)
+    b_jax, se_jax = bsum / cnt, np.mean(se_l)
 
-    assert np.corrcoef(b_np, b_tpu)[0, 1] > 0.9, np.corrcoef(b_np, b_tpu)[0, 1]
-    assert abs(se_tpu - se_np) / se_np < 0.15, (se_tpu, se_np)
+    assert np.corrcoef(b_np, b_jax)[0, 1] > 0.9, np.corrcoef(b_np, b_jax)[0, 1]
+    assert abs(se_jax - se_np) / se_np < 0.15, (se_jax, se_np)
     # both recover the sparse truth
     assert np.corrcoef(b_np, beta_true)[0, 1] > 0.6
-    assert np.corrcoef(b_tpu, beta_true)[0, 1] > 0.6
+    assert np.corrcoef(b_jax, beta_true)[0, 1] > 0.6
+
+
+# ---- marker-processing schedule (BayesRRmConfig.schedule) ----
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "stale"])
+def test_block_schedule_auto_stays_marker_for_exact(exact):
+    """--schedule auto resolves to the reference's per-sweep marker shuffle
+    on every backend, exact or stale."""
+    ds, _, _ = simulate(m=128, n=300, h2=0.5, seed=5)
+    s = BayesRRm(ds, window=32, exact=exact, seed=7, mesh=make_mesh(1),
+                 schedule="auto")
+    assert s.cfg.schedule == "marker"
+    np.testing.assert_array_equal(s.slot_to_marker[:128], np.arange(128))
+
+
+def test_block_schedule_differs_from_marker_but_recovers():
+    """The two schedules are different (valid) chains over the same
+    posterior: the block chain permutes the slot layout once, still covers
+    every marker, moves and keeps finite state."""
+    ds, _, _ = simulate(m=192, n=400, h2=0.5, seed=5)
+    sb = BayesRRm(ds, window=32, exact=False, seed=7, mesh=make_mesh(1),
+                  schedule="block")
+    assert sb.cfg.schedule == "block"
+    assert not np.array_equal(sb.slot_to_marker, np.arange(192))
+    assert set(sb.slot_to_marker.tolist()) >= set(range(192))
+    st = sb.init_state()
+    for it in range(3):
+        st, _ = sb.step(st, it)
+    assert np.isfinite(np.asarray(st.eps)).all()
+    assert float(np.asarray(st.sigma_g).sum()) > 0
+
+
+def test_block_schedule_exact_is_honored_and_matches_window_path(capsys):
+    """Explicit exact + block: honoured (with a note that window-width
+    invariance is waived) and deterministic for a fixed seed."""
+    ds, _, _ = simulate(m=128, n=300, h2=0.5, seed=5)
+    runs = []
+    for _ in range(2):
+        s = BayesRRm(ds, window=32, exact=True, seed=7, mesh=make_mesh(1),
+                     schedule="block")
+        assert s.cfg.schedule == "block"
+        st = s.init_state()
+        for it in range(3):
+            st, _ = s.step(st, it)
+        runs.append(np.asarray(s.beta_global(st)))
+    assert "window-width invariance" in capsys.readouterr().out
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert np.isfinite(runs[0]).all()
+
+
+def f32_dots_below_highest(closed_jaxpr) -> list:
+    """Every dot_general of the jaxpr (sub-jaxprs included) that takes a
+    float32 operand without precision=HIGHEST; on the GPU such a product
+    may run in TF32. bf16 products (the exact integer-plane Gram) pass."""
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                prec = eqn.params.get("precision")
+                precs = prec if isinstance(prec, tuple) else (prec, prec)
+                if (any(v.aval.dtype == jnp.float32 for v in eqn.invars)
+                        and not all(p == jax.lax.Precision.HIGHEST
+                                    for p in precs)):
+                    found.append(str(eqn)[:200])
+            for val in eqn.params.values():
+                for sub in val if isinstance(val, (tuple, list)) else (val,):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        walk(inner)
+
+    walk(closed_jaxpr.jaxpr)
+    return found
+
+
+@pytest.mark.parametrize("cross_sync,missing", [
+    (0, 0.0), (1, 0.0), (4, 0.0), (1, 0.05)])
+def test_exact_step_f32_products_use_highest(cross_sync, missing):
+    """The exact sweep on a multi-shard mesh (the per-step, batched and
+    per-window cross-shard exchanges; complete and missing genotypes) has
+    no f32 product below HIGHEST precision."""
+    ds, _, _ = simulate(m=64, n=200, h2=0.5, seed=9, missing_frac=missing)
+    s = BayesRRm(ds, window=8, exact=True, seed=13, mesh=make_mesh(4),
+                 shuffle=True, cross_sync=cross_sync)
+    jaxpr = jax.make_jaxpr(s.raw_step)(jnp.uint32(13), jnp.int32(0),
+                                       s.init_state())
+    assert f32_dots_below_highest(jaxpr) == []
+
+
+@pytest.mark.parametrize("num_groups,lead", [(1, ()), (3, ()), (4, (2,))])
+def test_group_sum_matches_segment_sum(num_groups, lead):
+    """The fused per-group reduction behind beta_sqn equals segment_sum
+    (over the last axis, with leading trait axes)."""
+    from hydra_tpu.samplers.bayesrrm import group_sum
+
+    rs = np.random.RandomState(num_groups)
+    groups = jnp.asarray(rs.randint(0, num_groups, 257), jnp.int32)
+    v = jnp.asarray(rs.randn(*lead, 257), jnp.float32)
+    got = np.asarray(group_sum(v, groups, num_groups))
+    want = np.stack([np.asarray(jax.ops.segment_sum(
+        row, groups, num_segments=num_groups))
+        for row in np.asarray(v).reshape(-1, 257)]).reshape(
+            lead + (num_groups,))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

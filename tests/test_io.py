@@ -1,5 +1,7 @@
 """IO layer tests: PLINK round-trip, NA semantics, sparse format, groups."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -17,6 +19,9 @@ from hydra_tpu.io.groups import (
     read_group_priors,
     read_ms_file,
 )
+
+# small hand-written files in the reference's formats
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 def test_bed_roundtrip(synthetic_bed_factory):
@@ -39,10 +44,15 @@ def test_fam_bim_readers(synthetic_bed_factory):
 
 
 def test_reference_fam_reader():
-    """The reference's only gtest asserts 3642 individuals in this file
+    """PLINK .fam layout (FID IID father mother sex phenotype); the same
+    IID under two FIDs is two individuals (data.cpp:1455-1458 keys on
+    both). The reference's only gtest counts a .fam's individuals
     (test/dataTest.cpp:4-10)."""
-    fam = plink.read_fam("/root/reference/test/data/uk10k_chr1_1mb.fam")
-    assert fam.n == 3642
+    fam = plink.read_fam(os.path.join(DATA, "small.fam"))
+    assert fam.n == 6
+    assert fam.fid == ["FAM1", "FAM1", "FAM1", "FAM2", "FAM2", "FAM3"]
+    assert fam.pid == ["IND1", "IND2", "IND3", "IND1", "IND2", "IND7"]
+    np.testing.assert_array_equal(fam.sex, [1, 2, 1, 2, 0, 1])
 
 
 def test_phenotype_na_semantics(tmp_path):
@@ -72,9 +82,10 @@ def test_phen_fail(tmp_path):
 
 
 def test_failure_file_reference_example():
-    fail = read_failure_file("/root/reference/example/Weibull.fail")
-    assert set(np.unique(fail)) <= {0.0, 1.0}
-    assert len(fail) == 5000
+    """.fail: one 0/1 event indicator per individual (data.cpp:1919-1937)."""
+    fail = read_failure_file(os.path.join(DATA, "small.fail"))
+    np.testing.assert_array_equal(fail, [1, 0, 0, 1, 1, 0, 1, 1])
+    assert fail.dtype == np.float64
 
 
 def test_center_and_scale():
@@ -85,16 +96,20 @@ def test_center_and_scale():
 
 
 def test_ms_file_reference_example():
-    mS = read_ms_file("/root/reference/example/normal.mS")
+    """.mS: one comma-separated mixture grid per group, groups separated by
+    ';'; the reader prepends the spike's 0.0 (data.cpp:1963-2009)."""
+    mS = read_ms_file(os.path.join(DATA, "small.mS"))
     assert mS.shape == (2, 4)
     np.testing.assert_allclose(mS[0], [0.0, 0.001, 0.01, 0.1])
-    np.testing.assert_allclose(mS[1], [0.0, 0.001, 0.01, 0.1])
+    np.testing.assert_allclose(mS[1], [0.0, 0.0001, 0.001, 0.01])
 
 
 def test_group_file_reference_example():
-    g = read_group_file("/root/reference/example/normal.group")
-    assert len(g) == 10000
-    assert set(np.unique(g)) == {0, 1}
+    """.group: one group index per marker, any whitespace layout
+    (data.cpp:1940-1959)."""
+    g = read_group_file(os.path.join(DATA, "small.group"))
+    np.testing.assert_array_equal(g, [0, 0, 1, 1, 2, 2, 0, 1, 1, 0])
+    assert g.dtype == np.int32
 
 
 def test_group_priors(tmp_path):

@@ -24,10 +24,9 @@ import time
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo/scripts")
-from run_multiprocess import free_port, launch, wait_all  # noqa: E402
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+from run_multiprocess import free_port, launch, wait_all  # noqa: E402
 
 CHAIN = dict(chain=36, thin=3, save=12, seed=42)
 OUT_FILES = ("ref.csv", "ref.bet", "ref.cpn", "ref.acu", "ref.eps.0",
@@ -272,3 +271,55 @@ def test_mt_two_process_bitwise_match(mp_data, tmp_path):
     for t in (0, 1):
         _assert_identical(sp, mp, files=(f"ref.t{t}.csv", f"ref.t{t}.bet",
                                          f"ref.t{t}.cpn", f"ref.t{t}.eps.0"))
+
+
+@pytest.mark.parametrize("device,dpp", [("gpu", 1), ("gpu", 2), ("cpu", 4)])
+def test_launcher_gives_each_process_its_devices(monkeypatch, device, dpp):
+    """GPU gangs: process p sees cards p*D..p*D+D-1 (CUDA_VISIBLE_DEVICES)
+    and autotunes its own program; CPU gangs get D virtual devices each.
+    Popen is faked: nothing is started."""
+    import run_multiprocess
+
+    seen = []
+
+    class FakePopen:
+        def __init__(self, cmd, env=None, **kw):
+            seen.append((cmd, env))
+
+    monkeypatch.setattr(run_multiprocess.subprocess, "Popen", FakePopen)
+    monkeypatch.setenv("XLA_FLAGS", "--xla_dump_to=/nowhere")
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    procs = launch(2, dpp, ["--mpibayes", "bayesMPI"], device=device,
+                   port=12345)
+    assert len(procs) == 2
+    for pid, (cmd, env) in enumerate(seen):
+        assert cmd[cmd.index("--device") + 1] == device
+        assert env["HYDRA_PROC_ID"] == str(pid)
+        assert env["HYDRA_NUM_PROCS"] == "2"
+        assert env["HYDRA_COORDINATOR"] == "localhost:12345"
+        assert env["XLA_FLAGS"].endswith("--xla_dump_to=/nowhere")
+        if device == "gpu":
+            assert env["CUDA_VISIBLE_DEVICES"] == ",".join(
+                str(pid * dpp + d) for d in range(dpp))
+            assert "--xla_gpu_shard_autotuning=false" in env["XLA_FLAGS"]
+        else:
+            assert "CUDA_VISIBLE_DEVICES" not in env
+            assert (f"--xla_force_host_platform_device_count={dpp}"
+                    in env["XLA_FLAGS"])
+
+
+def test_launcher_numbers_cards_within_its_own_visible_set(monkeypatch):
+    """A launcher that itself sees a subset of the host's cards hands its
+    processes cards from that subset, in order."""
+    import run_multiprocess
+
+    seen = []
+
+    class FakePopen:
+        def __init__(self, cmd, env=None, **kw):
+            seen.append(env["CUDA_VISIBLE_DEVICES"])
+
+    monkeypatch.setattr(run_multiprocess.subprocess, "Popen", FakePopen)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "4,5,6,7")
+    launch(2, 2, ["--mpibayes", "bayesMPI"], device="gpu", port=12345)
+    assert seen == ["4,5", "6,7"]

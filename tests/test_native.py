@@ -69,17 +69,3 @@ def test_bed_dot(synthetic_bed_factory):
     g_np, m_np = plink.decode_bed_numpy(gd.packed, 60)
     xt = (g_np - gd.mave[:, None] * m_np) * gd.mstd[:, None]
     np.testing.assert_allclose(num, xt[:, :60] @ eps, rtol=1e-10)
-
-
-def test_bed_expand_planes():
-    rs = np.random.RandomState(5)
-    packed = rs.randint(0, 256, (37, 256)).astype(np.uint8)
-    out = native.bed_expand_planes(packed)
-    if out is None:  # no toolchain
-        return
-    # NumPy LUT golden in the same flat-deinterleaved layout
-    lut = np.array([2, 0, 1, 0], np.int8)
-    ref = np.concatenate(
-        [lut[(packed.astype(np.int64) >> (2 * k)) & 3] for k in range(4)],
-        axis=1)
-    np.testing.assert_array_equal(out, ref)

@@ -1,4 +1,4 @@
-"""Option parsing / validation rules, incl. the TPU-fast faithful defaults.
+"""Option parsing / validation rules, incl. the fast faithful defaults.
 
 Exact mode is window-invariant (test_bayesrrm.py::
 test_exact_mode_is_exact_across_shards), so the default CLI run must take
@@ -55,10 +55,9 @@ def test_bayesw_window_64_no_warning(capsys):
 
 
 def test_exact_window_autosizes_at_wide_n(capsys):
-    """The defaulted exact window is hardware-sized once N is known
-    (runner._autosize_exact_window): W=128 measured faster than W=64 at
-    N=50K (73.2 vs 75.7 ms exact mega, hw battery 2026-08-19). A
-    user-passed --window is never touched, nor is stale mode."""
+    """The defaulted exact window is sized once N is known
+    (runner._autosize_exact_window): W=128 above N=16384. A user-passed
+    --window is never touched, nor is stale mode."""
     from hydra_tpu.runner import _autosize_exact_window
     opt = parse_args(["--mpibayes", "bayesMPI", "--bfile", "x",
                       "--pheno", "x.phen"])
@@ -99,12 +98,3 @@ def test_restart_adopts_saved_window_when_auto(capsys):
     apply_restart_rng(explicit, rd)
     assert explicit.window == 32            # user choice wins, with a warning
     assert "WARNING" in capsys.readouterr().out
-
-
-def test_cache_planes_auto_is_alias_of_off():
-    opt = parse_args(["--mpibayes", "bayesMPI", "--bfile", "x",
-                      "--pheno", "x.phen", "--cache-planes", "auto"])
-    assert opt.plane_cache == "auto"   # accepted; behaviorally == off
-    opt2 = parse_args(["--mpibayes", "bayesMPI", "--bfile", "x",
-                       "--pheno", "x.phen"])
-    assert opt2.plane_cache == "off"

@@ -11,7 +11,7 @@ import sys
 import numpy as np
 import pytest
 
-from tests.conftest import make_synthetic_bed
+from tests.conftest import REPO, make_synthetic_bed
 
 
 def _write_phen(base, n, seed=4, na_every=0):
@@ -24,11 +24,11 @@ def _write_phen(base, n, seed=4, na_every=0):
                 fh.write(f"per{i} per{i} {rs.randn():.6f}\n")
 
 
-def _run_cli(args, cwd="/root/repo"):
+def _run_cli(args, cwd=REPO):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = REPO
     r = subprocess.run([sys.executable, "-m", "hydra_tpu.cli"] + args,
                        capture_output=True, text=True, env=env, cwd=cwd,
                        timeout=600)
@@ -183,7 +183,8 @@ def test_cli_groups_and_check_ram(tmp_path, capsys):
     assert int(tok[1]) == 2  # two groups -> two sigmaG columns
     # check-RAM path
     r = _run_cli(["--check-RAM", "--bfile", base, "--check-RAM-tasks", "4"])
-    assert "per-chip HBM estimate" in r.stdout
+    assert "per-device memory estimate" in r.stdout
+    assert "no device-memory check made" in r.stdout   # CPU: no limit known
 
 
 def test_cli_bayesw(tmp_path):
@@ -408,9 +409,7 @@ def test_bed_to_sparse_cli(tmp_path):
 
 def test_cli_bayesw_w1_exact_flag(tmp_path):
     """--window 1 = exact sequential BayesW; the .rng.0 state records
-    exact=true so restarts validate against the right schedule (on TPU the
-    W=1 whole-sweep kernel makes this affordable; here the XLA path runs
-    the same chain)."""
+    exact=true so restarts validate against the right schedule."""
     import json
     rs = np.random.RandomState(15)
     base, _ = make_synthetic_bed(tmp_path, 16, 60, seed=15)

@@ -60,13 +60,13 @@ def test_combine_csv(tmp_path):
 
 def test_postproc_cli_runs_on_real_output(tmp_path):
     """Drive the module CLI on a real sampler .bet file."""
-    from tests.conftest import make_synthetic_bed
+    from tests.conftest import REPO, make_synthetic_bed
     base, _ = make_synthetic_bed(tmp_path, 10, 40, seed=2)
     with open(base + ".phen", "w") as fh:
         rs = np.random.RandomState(0)
         for i in range(40):
             fh.write(f"per{i} per{i} {rs.randn():.5f}\n")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out = str(tmp_path / "o")
     subprocess.run([sys.executable, "-m", "hydra_tpu.cli", "--mpibayes",
                     "bayesMPI", "--bfile", base, "--pheno", base + ".phen",

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 from hydra_tpu import postproc
+from tests.conftest import REPO
 
 REF = "/root/reference/postproc"
 
@@ -78,7 +79,7 @@ def chain_out(tmp_path_factory):
     with open(base + ".phen", "w") as fh:
         for i in range(N):
             fh.write(f"per{i} per{i} {rs.randn():.5f}\n")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out = str(tmp / "o")
     subprocess.run(
         [sys.executable, "-m", "hydra_tpu.cli", "--mpibayes", "bayesMPI",
